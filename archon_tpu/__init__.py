@@ -1,8 +1,8 @@
-"""archon_tpu — a TPU-native block-sorting compression framework.
+"""archon_tpu — a block-sorting compression framework in JAX.
 
-The reference (kvark/dark-archon) family re-designed TPU-first: forward BWT
-via batched prefix-quadrupling suffix sorts (jit/XLA, optional Pallas
-kernels), inverse BWT via a native C++ MLP cycle walk, the a6 entropy stage
+The reference (kvark/dark-archon) family re-designed for an accelerator:
+forward BWT via batched prefix-quadrupling suffix sorts (jit/XLA), inverse
+BWT via a native C++ MLP cycle walk, the a6 entropy stage
 (exact Huffman + device bit-pack), block-streamed and mesh-sharded
 containers.  See README.md for the architecture map.
 

@@ -64,7 +64,7 @@ def bwt_forward_fast(data: jnp.ndarray, sentinel: str = SENT_SMALL):
     """Forward BWT on the narrowed (fused) suffix sorter — the production
     path.  Emits straight from the rank array: L[rank[p]] = data[p-1 mod n]
     is one scatter, and base = rank[0]; this skips the final SA inversion
-    sort and the random payload gather (~0.5 s at 2^25 on v5e).
+    sort and the random payload gather.
     Returns (L, base, rank) — rank is the inverse SA."""
     from .fast import suffix_ranks_fused
 

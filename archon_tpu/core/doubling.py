@@ -1,6 +1,6 @@
 """Prefix-doubling suffix array construction in JAX (single device).
 
-This is the TPU-native re-expression of the reference's GPU prefix-doubling
+This is the JAX re-expression of the reference's GPU prefix-doubling
 pipeline (gpu/Archon.boo:94-119: init -> sort -> diff -> scan -> scatter ->
 jump *= 2), with two corrections over the reference kernels:
 
@@ -13,8 +13,7 @@ jump *= 2), with two corrections over the reference kernels:
   a4/direct.c and final/x2 — doubling is repetition-immune by construction.
 
 Work: O(n log n); each round is one multi-operand sort + segmented head-flag
-scan + scatter, all XLA-fusable primitives.  The sort is ``jax.lax.sort`` in
-this baseline; the Pallas segmented radix sort swaps in via ``sort_fn``.
+scan + scatter, all XLA-fusable primitives.  The sort is ``jax.lax.sort``.
 """
 
 from __future__ import annotations
@@ -36,8 +35,8 @@ _EXT_BASE = 1 << _EXT_BITS  # 512
 
 
 def _invert_permutation(perm: jnp.ndarray, values: jnp.ndarray):
-    """values scattered to positions perm — via a sort, which on TPU is ~1.5x
-    cheaper than a random scatter (181 vs 271 ms at 2^25, see commit log)."""
+    """values scattered to positions perm — via a sort instead of a random
+    scatter (which of the two is cheaper is a property of the device)."""
     _, out = lax.sort((perm, values), num_keys=1)
     return out
 

@@ -3,8 +3,9 @@
 The reference inverse (a6/src/bwt.c:459-478 ``unbwt_transform/unbwt_write``,
 a7/src/archon.cpp:903-943 ``deCompute/deWrite``) builds the LF successor
 table by a counting pass and then walks the chain sequentially — the one
-inherently serial loop in the whole system (SURVEY.md section 3.4).  On TPU the
-table build becomes a stable sort and the walk becomes pointer doubling:
+inherently serial loop in the whole system (SURVEY.md section 3.4).  On the
+device the table build becomes a stable sort and the walk becomes pointer
+doubling:
 log2(n) rounds of jump-table squaring, each a large gather.
 
 The a4-vs-a7 convention difference survives into decode: the successor
@@ -68,9 +69,9 @@ _WALK_K = 4096  # parallel chain count of the blocked walk
 def _compose_perm(g: jnp.ndarray, h: jnp.ndarray) -> jnp.ndarray:
     """c[i] = g[h[i]] for a permutation ``h`` via two sorts.
 
-    PERF.md rule 1: a random n-gather costs ~2.5x what two sorts do on this
-    hardware (516ms vs 2x105ms at 2^25), so the jump-table squaring is
-    phrased as sort(h) -> h^-1, then scatter-by-sort of g onto h^-1."""
+    The jump-table squaring is phrased as sort(h) -> h^-1, then
+    scatter-by-sort of g onto h^-1, instead of a random n-gather (on a
+    device where gathers cost more than two sorts)."""
     n = h.shape[0]
     iota = lax.iota(jnp.int32, n)
     _, inv = lax.sort((h, iota), num_keys=1)  # inv[j] = h^-1(j)
@@ -86,8 +87,8 @@ def pointer_walk(L: jnp.ndarray, P: jnp.ndarray, base: jnp.ndarray) -> jnp.ndarr
     sort-compositions instead of log2(n) full-width random gathers), seed K
     equally-spaced-along-the-cycle chain heads from the doubling prefix,
     then walk all K chains in lockstep — n/K fori steps of two K-sized
-    gathers, filling the output K cells per step.  Replaces round-1's full
-    jump-table squaring (VERDICT r1 weak #5)."""
+    gathers, filling the output K cells per step, instead of log2(n)
+    full-width squarings."""
     n = L.shape[0]
     if n <= 2 * _WALK_K:
         # small blocks: plain doubling, gathers are cheap at this size

@@ -9,7 +9,7 @@ Semantics replicate a6/src/coder.c:
   (coder_build_decoder/coder_decode_symbol, coder.c:130-209) expressed as a
   table walk; used for tests and the CLI unpack path.
 
-The JAX/Pallas vectorized bit-pack (prefix-sum of lengths + word scatter-OR)
+The JAX vectorized bit-pack (prefix-sum of lengths + word scatter-OR)
 lives in archon_tpu/ops/bitpack.py; these numpy forms are its oracle.
 """
 

@@ -1,7 +1,7 @@
 """Golden (oracle) suffix-array and BWT models, pure numpy.
 
 These are the bit-exact reference emulators for the Archon family formats
-(SURVEY.md section 7, layer 1).  They define the *semantics* each TPU path must
+(SURVEY.md section 7, layer 1).  They define the *semantics* each device path must
 reproduce; speed is irrelevant here.
 
 Format semantics (empirically validated against the compiled reference

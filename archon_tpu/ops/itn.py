@@ -12,12 +12,13 @@ This is the vectorized form of the reference's IT family:
 - the split-fraction study lives in a5/tool/estimate (results: order-3
   ~24% direct, order-4 ~12%, order-5 ~7%).
 
-On TPU the masks are one vectorized comparison chain (`it_masks`), and the
-measured fractions guide how much direct-sort work an induced path saves.
+On the device the masks are one vectorized comparison chain (`it_masks`),
+and the measured fractions guide how much direct-sort work an induced path
+saves.
 The induced waves themselves are rank-sequential (each placement depends on
 already-placed smaller suffixes), i.e. a scan with data-dependent scatter —
 `induced_derive_numpy` is the exact reference semantics used as the oracle
-for future Pallas frontier-propagation work; the production sorter remains
+for future frontier-propagation work; the production sorter remains
 prefix doubling (repetition-immune, fully parallel).
 """
 
@@ -114,7 +115,7 @@ def itoh_tanaka_sa(data: np.ndarray) -> np.ndarray:
     (the structure of a4/src/archon.c:172-194).
 
     The wave is rank-sequential — each placement reads a possibly
-    just-placed entry — which is exactly why the production TPU path uses
+    just-placed entry — which is exactly why the production device path uses
     prefix doubling instead, and why the a7 SA-IS induce passes are the
     "research-grade" item of SURVEY.md section 7.  This oracle nails the
     semantics for that future work and is tested against the golden SA.

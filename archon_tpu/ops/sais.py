@@ -13,7 +13,7 @@ Terminator-smallest convention (suffix array of T with $ < everything),
 i.e. golden.suffix_array(T, 'small').  This is the correctness model for
 the future data-parallel induced path (SURVEY.md section 7 hard-part 6:
 the induce sweeps are rank-sequential; published parallel formulations use
-repeated bucket passes).  The production TPU sorter remains prefix doubling.
+repeated bucket passes).  The production device sorter remains prefix doubling.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Blocked prefix scans.
 
-XLA:TPU lowers ``lax.cummax``/``cumsum`` along an axis as a length-n
-sequential scan — measured 38 ms for n = 2^25 int32 (docs/PERF.md), ~25x
-worse than the HBM-bandwidth floor, and the suffix pipeline runs one
-full-width cummax per sort round.  The fix needs no custom kernel: split the
+A backend may lower ``lax.cummax``/``cumsum`` along an axis as a length-n
+sequential scan, far above the memory-bandwidth floor, and the suffix
+pipeline runs one full-width cummax per sort round.  The blocked form
+needs no custom kernel: split the
 scan axis into C-length chunks, scan WITHIN chunks (the sequential dimension
 shrinks to C while every chunk scans in parallel as a vectorized leading
 dim), scan the n/C chunk totals (cheap), and combine.  Three bandwidth-bound

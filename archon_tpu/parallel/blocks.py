@@ -3,8 +3,10 @@
 The reference's scaling unit is the independent block (final/x1 fixed 4 MB
 blocks, ArchonX1.c:53-60; x2/x3 configurable ``-b``).  Here blocks become a
 leading array axis sharded over the ``dp`` mesh axis; XLA SPMD partitions the
-whole batched transform with zero cross-device communication — the TPU
-equivalent of the reference's block streaming loop.
+whole batched transform with zero cross-device communication — the mesh
+equivalent of the reference's block streaming loop.  The mesh is a plain
+reshape of the device list: the dp path has no collectives, and the sp
+path's all_to_all/ppermute traffic sees every device pair alike.
 """
 
 from __future__ import annotations

@@ -81,7 +81,7 @@ def text_like(n: int, seed: int = 7) -> bytes:
 def markup_like(n: int, seed: int = 11) -> bytes:
     """XML/wiki-ish markup text — the structural corpus class enwik8 actually
     is (a Wikipedia XML dump: nested tags, [[links]], entities, indented
-    attribute lines) that plain ``text_like`` lacks (VERDICT r3 #10).
+    attribute lines) that plain ``text_like`` lacks.
 
     Tie structure vs text_like: heavy *exact* medium-length repeats (every
     ``<page>``/``<revision>`` skeleton is byte-identical) drive tie depth at
@@ -144,8 +144,7 @@ def load_or_synthesize(n: int) -> tuple[str, bytes]:
     Search order: $ARCHON_CORPUS (explicit override), then the conventional
     drop paths above.  This environment has no network egress, so the real
     enwik8/Calgary named in BASELINE.md cannot be fetched here; every bench
-    run logs exactly which corpus it measured (the acquisition-attempt record
-    round-2 review asked for)."""
+    run logs exactly which corpus it measured."""
     global _logged_choice
     tried = []
     explicit = os.environ.get("ARCHON_CORPUS")

@@ -4,7 +4,6 @@ The reference's debug machinery is assert density plus memory poisoning
 (a5's kDebug=DM_CHECK memsets unused group regions to -1 so a wrong
 derivation trips immediately, a5/src/archon.c:155-160).  The JAX analogs:
 
-- ``interpret_mode()``: run Pallas kernels interpreted for inspection;
 - ``checked(fn)``: wrap a jitted function with jax.experimental.checkify to
   surface index/NaN errors that silent clamping would hide;
 - ``poison_check(rank)``: assert no poison values survived a refinement
@@ -13,20 +12,7 @@ derivation trips immediately, a5/src/archon.c:155-160).  The JAX analogs:
 
 from __future__ import annotations
 
-import contextlib
-
-import jax
-import jax.numpy as jnp
 import numpy as np
-
-
-@contextlib.contextmanager
-def interpret_mode():
-    """Force Pallas kernels into interpreter mode within the context."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    with pltpu.force_tpu_interpret_mode():
-        yield
 
 
 def checked(fn):

@@ -4,7 +4,7 @@ The reference wraps every stage in clock() spans and prints per-stage times
 plus derived metrics (a4 printime, a4/src/main.c:9-14; a5's per-stage
 "Stage k" report and "Linear coef" ms/MB, a5/src/archon.c:161-192; a6's
 transform-vs-IO split, a6/src/main.c:160-174).  ``StageTimer`` reproduces
-that reporting; ``profile_trace`` wraps jax.profiler for deeper TPU traces.
+that reporting; ``profile_trace`` wraps jax.profiler for device traces.
 """
 
 from __future__ import annotations

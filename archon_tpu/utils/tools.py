@@ -8,8 +8,7 @@ section 2.2); the ports keep that feedback loop available:
 - ``reorder_direct_volume``<- a6/tool/reorder/reorder.c:346-359 (the IT
   variant estimators: what fraction each split strategy sorts directly)
 - ``radix_direction_bench``<- tool/radix_dir/radix.c:38-87 (scan-direction
-  microbenchmark; on TPU the analog is lane-vs-sublane layout choice, so
-  this reports the host-side numbers for the record)
+  microbenchmark; it reports the host-side numbers for the record)
 - ``route_search``         <- a5/tool/route/route.cpp (derivation-plan
   search over IT-N group dependencies, simplified exhaustive form)
 """

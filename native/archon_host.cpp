@@ -1,6 +1,6 @@
 // archon_host: native host-side runtime for archon_tpu.
 //
-// The TPU owns the transform math; this library owns the host runtime the
+// The accelerator owns the transform math; this library owns the host runtime the
 // reference implemented in C (SURVEY.md section 2: "every performance-relevant
 // component is native"): the serial LF chain walk used by decode paths and
 // verification oracles (a6/src/bwt.c:459-478, a7/src/archon.cpp:903-943),
@@ -400,7 +400,7 @@ int64_t archon_bitpack(const uint8_t* data, int64_t n,
 // unique (this is exactly how the reference's sort and get_char consume the
 // stream, a6/src/bwt.c:112-144).  A forward LSB-aligned match would be
 // ambiguous.  Decodes back-to-front, emitting into out[n-1]..out[0].
-// First-bits table decode (the TPU-era answer to the reference's
+// First-bits table decode (this port's answer to the reference's
 // DECODE_BITS=12 offset+list buckets, a6/src/coder.c:130-209): a
 // direct-mapped 4096-entry table resolves every code of length <= 12 in one
 // load + one shift — no bucket list scan at all.  Codes longer than 12 bits

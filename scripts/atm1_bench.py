@@ -1,10 +1,10 @@
 """ATM1 (sharded megablock container) ratio + recovery-decode bench.
 
 Runs standalone on a virtual 8-device CPU mesh (the encode needs an sp
-mesh; bench.py's TPU has one chip) and prints ONE JSON line with
-``atm1_ratio`` and ``atm1_decode_mbps`` — the recovery-decode number
-VERDICT r4 missing #4 asked for.  bench.py invokes this as a subprocess
-and merges the fields.
+mesh; bench.py runs on one card) and prints ONE JSON line with
+``atm1_ratio`` and ``atm1_decode_mbps`` (the recovery-decode rate).
+bench.py invokes this as a subprocess and merges the fields; the CPU is
+forced before the backend starts, so the child never claims the card.
 """
 
 import json

@@ -1,22 +1,15 @@
-"""Round-3 TPU measurements (run standalone, serialized with other TPU work).
+"""Device microbenchmarks of the forward sorter's parts (run standalone,
+one process per card).
 
 Stages (each independently guarded; pass stage names as argv to select):
   cummax   - blocked_cummax vs lax.cummax at 2^25 / 2^26
   stages   - micro-program stage attribution at (16, 2^22): bootstrap alone,
-             bootstrap+invert+round, vs the known full-program number
-  sais     - bwt_sais vs bwt_v3 at 2^22 (VERDICT #7: measure or retract)
-  pallas   - FULL sort_operands (tile sort + merge levels) vs lax.sort at
-             2^22, in the two shapes the round structure actually uses
-             (1 key + payload; 4 rank keys + iota).  This is the number that
-             decides the fusion experiment (VERDICT #2): if the full Pallas
-             sort is not within striking distance of lax.sort, fusing the
-             ~ms-scale head-flag pass into it cannot win, and the experiment
-             is abandoned with numbers.
+             bootstrap+invert+round, vs the full-program number
+  sais     - bwt_sais vs bwt_v3 at 2^22
 
-Writes human-readable lines; copy results into docs/PERF.md.
+Writes human-readable lines.
 """
 
-import functools
 import os
 import sys
 import time
@@ -56,14 +49,13 @@ def _force(out):
 
 
 def main():
-    which = set(sys.argv[1:]) or {"cummax", "stages", "sais", "pallas"}
+    which = set(sys.argv[1:]) or {"cummax", "stages", "sais"}
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", os.path.join(_REPO, ".jax_cache"))
-    jax.config.update("jax_enable_compilation_cache", True)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    from archon_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
     from jax import lax
@@ -161,65 +153,6 @@ def main():
             except Exception as e:  # noqa: BLE001 - record and continue
                 print(f"[sais] 2^22 {name}: FAILED after {time.time()-t0:.0f}s: "
                       f"{type(e).__name__}: {e}", flush=True)
-
-    if "pallas" in which:
-        from archon_tpu.ops.pallas_sort import sort_operands
-
-        n = 1 << 22
-        rng = np.random.default_rng(1)
-        iota = jnp.arange(n, dtype=jnp.int32)
-        # shape A: 1 key + payload (the bitpack/compact sorts)
-        key1 = jnp.asarray(rng.integers(0, 1 << 30, n, np.int64).astype(np.int32))
-        # shape B: the quad round's sort — 4 rank keys + iota.  lax.sort
-        # relies on stability for the iota order; the bitonic network is not
-        # stable, so its drop-in form carries iota as a 5th key.
-        ranks = [
-            jnp.asarray(rng.integers(0, n, n, np.int64).astype(np.int32))
-            for _ in range(4)
-        ]
-        # heavy-ties variant (ADVICE r3): early quad rounds see heavily
-        # duplicated ranks, not near-unique ones — group-head ranks drawn
-        # from ~n/64 distinct values reproduce that regime
-        tied = [
-            jnp.asarray(
-                (rng.integers(0, n // 64, n, np.int64) * 64).astype(np.int32)
-            )
-            for _ in range(4)
-        ]
-        cases = [
-            ("1key+payload", (key1, iota), 1, (key1, iota), 2),
-            ("4keys+iota", (*ranks, iota), 4, (*ranks, iota), 5),
-            ("4keys+iota-heavyties", (*tied, iota), 4, (*tied, iota), 5),
-        ]
-        for name, lax_ops, lax_nk, pl_ops, pl_nk in cases:
-
-            @functools.partial(jax.jit, static_argnums=(1,))
-            def f_lax(ops, nk):
-                return [o.sum() for o in lax.sort(ops, num_keys=nk)]
-
-            @functools.partial(jax.jit, static_argnums=(1,))
-            def f_pl(ops, nk):
-                return [o.sum() for o in sort_operands(ops, num_keys=nk)]
-
-            for impl, f, ops, nk in (
-                ("lax.sort", f_lax, lax_ops, lax_nk),
-                ("pallas_full", f_pl, pl_ops, pl_nk),
-            ):
-                t0 = time.time()
-                try:
-                    single, pipe = _t(f, ops, nk)
-                    print(
-                        f"[pallas] 2^22 {name} {impl}: {single*1e3:.1f} ms "
-                        f"single, {pipe*1e3:.1f} ms pipelined "
-                        f"(compile+iters {time.time()-t0:.0f}s)",
-                        flush=True,
-                    )
-                except Exception as e:  # noqa: BLE001
-                    print(
-                        f"[pallas] 2^22 {name} {impl}: FAILED after "
-                        f"{time.time()-t0:.0f}s: {type(e).__name__}: {e}",
-                        flush=True,
-                    )
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
-"""bench.py warm-marker guard: per-file drift reporting (VERDICT r3 #8)."""
+"""bench.py warm-marker guard: per-file drift reporting."""
 
 import sys
+from pathlib import Path
 
 
 def _bench():
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import bench
 
     return bench

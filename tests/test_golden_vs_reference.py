@@ -1,7 +1,7 @@
 """Fuzz the numpy golden models against the compiled reference binaries.
 
 This is the anchor of the whole test pyramid (SURVEY.md section 7 layer 1):
-every TPU path is later validated against these goldens, so the goldens must
+every device path is later validated against these goldens, so the goldens must
 be byte-exact vs the real a4/a7 binaries.
 """
 

@@ -164,8 +164,8 @@ def test_block_fault_isolation():
 def test_cli_dp_sp_impl_flags(tmp_path):
     """--dp shards the block batch, --sp routes through the sharded megablock
     pipeline (ATM1 auto-detected on decode), --impl v3 selects the cascade
-    program — all on the suite's 8-device CPU mesh (round-2 VERDICT weak #6:
-    config knobs must be consumed, not decorative)."""
+    program — all on the suite's 8-device CPU mesh (config knobs must be
+    consumed, not decorative)."""
     from archon_tpu.cli import main
 
     data = text_like(40000, seed=11)
@@ -181,8 +181,8 @@ def test_cli_dp_sp_impl_flags(tmp_path):
 
 
 def test_cli_resume_flag_consumed(tmp_path, capsys):
-    """--resume must actually route through encode_to_path (it was parsed
-    but unconsumed before round 4): a second resume run recomputes ZERO
+    """--resume must actually route through encode_to_path (not merely
+    be parsed): a second resume run recomputes ZERO
     blocks, and a truncated container is repaired to byte-identical."""
     from archon_tpu.cli import main
 
@@ -206,8 +206,8 @@ def test_cli_resume_flag_consumed(tmp_path, capsys):
 
 def test_corpus_env_override(tmp_path, monkeypatch):
     """$ARCHON_CORPUS points the bench corpus loader at a real file; absent
-    that, it logs the acquisition attempt and synthesizes (round-2 VERDICT
-    missing #4: corpus honesty)."""
+    that, it logs the acquisition attempt and synthesizes (corpus
+    honesty)."""
     import importlib
 
     from archon_tpu.utils import corpus
@@ -223,7 +223,7 @@ def test_corpus_env_override(tmp_path, monkeypatch):
 
 
 def test_resume_input_drift_guard(tmp_path):
-    """--resume must not trust stale frames (ADVICE r4 medium): if the INPUT
+    """--resume must not trust stale frames: if the INPUT
     changed since the partial encode, kept frames would silently decode to
     the OLD bytes.  The guard round-trips the last kept frame against the
     current input and restarts on mismatch; a SHRUNK input additionally
@@ -252,7 +252,7 @@ def test_resume_input_drift_guard(tmp_path):
 
 def test_streamed_window_bounds_inflight(monkeypatch):
     """The streamed dispatcher must keep at most ARCHON_PIPE_BLOCKS blocks
-    in flight (VERDICT r4 weak #1): device-resident footprint O(window),
+    in flight: device-resident footprint O(window),
     not O(file).  Tracked by shimming bwt_v3 with lazily-fetched results."""
     from archon_tpu.core import fast2
     from archon_tpu.io.blocks import _streamed_forward

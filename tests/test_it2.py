@@ -1,6 +1,6 @@
 """IT-2 reduced-volume BWT (core/it2.py) — exactness vs the v3 production
 path, both sentinel conventions, plus the exact-or-flagged contract on
-pathological inputs (VERDICT r4 #1: the reduced-sorted-volume structure)."""
+pathological inputs (the reduced-sorted-volume structure)."""
 
 import numpy as np
 import pytest

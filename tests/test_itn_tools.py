@@ -92,6 +92,6 @@ def test_memory_report():
     r = memory_report(1 << 20)
     assert r["total_bytes"] == r["bytes_per_input_byte"] * (1 << 20)
     # doubling-family working set is O(N) with a modest constant (the
-    # reference's 5N budget becomes ~50N of i32 sort operands on TPU —
+    # reference's 5N budget becomes ~50N of i32 sort operands on device —
     # reported, as the reference reports its own)
     assert 20 <= r["bytes_per_input_byte"] <= 100

@@ -1,4 +1,4 @@
-"""JAX core vs golden models (runs on CPU; same code runs on TPU)."""
+"""JAX core vs golden models (runs on CPU; same code runs on the GPU)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -107,8 +107,8 @@ def test_dynamic_round_matches_static():
 
 @pytest.mark.parametrize("name", ["zeros", "fibonacci"])
 def test_sharded_gauntlet_large(name):
-    """VERDICT r1 item 3: shard-spanning tie groups at n >= 2^20 complete
-    (the round-1 partitioner aborted here).  Exactness vs golden."""
+    """Shard-spanning tie groups at n >= 2^20 complete (a splitter-based
+    partitioner aborts here).  Exactness vs golden."""
     n = 1 << 20
     mesh = make_mesh({"sp": 8})
     if name == "zeros":

@@ -1,5 +1,5 @@
 """Alphabet reorder heuristics (entropy/order.py vs a6/src/order.c) and the
-wired -o path (VERDICT r3 #7: zero untested modules)."""
+wired -o path."""
 
 import numpy as np
 import pytest
@@ -92,7 +92,7 @@ def test_a6_order_roundtrip(coder, name):
 
     data = text_like(30000)
     blob = a6_encode(data, coder, order=name)
-    # extension blob is SELF-DESCRIBING (ADVICE r4): magic, then the table
+    # extension blob is SELF-DESCRIBING: magic, then the table
     assert blob[:4] == b"AO1\xff"
     dc = np.frombuffer(blob[4:260], np.uint8)
     assert sorted(dc.tolist()) == list(range(256))

@@ -1,4 +1,4 @@
-"""TPU induced-sorting path (core/sais_tpu) vs golden, both conventions."""
+"""Data-parallel induced-sorting path (core/sais_tpu) vs golden, both conventions."""
 
 import numpy as np
 import pytest

@@ -102,7 +102,7 @@ def test_encode_file_verify_wired():
 def test_resume_after_truncation(tmp_path):
     """Checkpoint/resume at block granularity: truncate an encode mid-frame,
     resume, and get a byte-identical container while recomputing only the
-    missing blocks (VERDICT r1 item 8)."""
+    missing blocks."""
     data = text_like(10 * 1024, seed=3)
     full = tmp_path / "full.at"
     part = tmp_path / "part.at"
